@@ -1,8 +1,9 @@
-"""mgl-tpu: TPU-native genomics kernel engine.
+"""mgl-tpu: genomics kernel engine on JAX.
 
 A from-scratch rebuild of microsoft/mgl's capabilities (GATK's banded
-Smith-Waterman and PairHMM cores) as JAX/Pallas kernels, with batching,
-read mapping, multi-chip scaling, and global sorting on top.
+Smith-Waterman and PairHMM cores) as JAX programs and Pallas kernels for
+the GPU, with batching, read mapping, multi-device scaling, and global
+sorting on top.
 
 Primary entry points:
 

@@ -1,7 +1,7 @@
 """Length bucketing for padded batch execution.
 
 The reference processes one pair per JNI call (SW) or one read x all-haps
-per TBB task (PairHMM).  On TPU we instead run padded, length-bucketed
+per TBB task (PairHMM).  Here we instead run padded, length-bucketed
 batches (BASELINE.json config 2); this module picks bucket shapes that
 bound padding waste while keeping the number of distinct compiled shapes
 small (every new (T, Q) pad shape costs an XLA compile).

@@ -24,16 +24,18 @@ def map_main():
     ap.add_argument("--k", type=int, default=16)
     ap.add_argument("--cigar", action="store_true",
                     help="emit real CIGARs (certified-diagonal tier + "
-                         "banded traceback for indel/edge reads) instead "
+                         "traceback for indel/edge reads) instead "
                          "of score-only verification")
     ap.add_argument("--max-reads", type=int, default=None)
     args = ap.parse_args()
 
+    from mgl_tpu.core.backend import enable_compile_cache
     from mgl_tpu.io.fasta import read_fasta, read_fastq
     from mgl_tpu.io.sam import write_sam
     from mgl_tpu.pipelines.align_sort import align_and_sort
     from mgl_tpu.pipelines.mapper import ReferenceIndex, map_reads_stream
 
+    enable_compile_cache()
     contigs = list(read_fasta(args.ref_fa).items())
     total_bp = sum(len(s) for _, s in contigs)
     print(f"reference: {len(contigs)} contig(s), {total_bp/1e6:.1f} Mbp",

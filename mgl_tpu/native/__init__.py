@@ -90,19 +90,6 @@ def get_lib():
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
     ]
-    lib.cigar_decode_batch.argtypes = [
-        ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32,
-    ]
-    lib.cigar_decode_batch_banded.argtypes = [
-        ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_int32,
-        ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
-    ]
     lib.score_max_batch.argtypes = [ctypes.c_int32] + [ctypes.c_void_p] * 2 + [
         ctypes.c_int64] + [ctypes.c_void_p] * 3 + [ctypes.c_void_p] * 6
     lib.radix_sort_kmer_index.argtypes = [
@@ -186,90 +173,6 @@ def pairhmm_f64_rescue(reads: list[dict], haps: list[np.ndarray],
         _ptr(haps_cat), _ptr(hap_off), _ptr(haplen),
         _ptr(trans), 7 * max_rows, max_rows, _ptr(y_init), _ptr(out), nthr,
     )
-    return out
-
-
-def cigar_decode_bulk(words: np.ndarray, ez: dict, tlen: np.ndarray,
-                      qlen: np.ndarray, strategy: int,
-                      n_threads: int | None = None):
-    """Bulk nibble->CIGAR decode.  words: (B, n_words, r1p) contiguous
-    uint32 (per-pair de-interleaved).  Returns list[(cigar, offset)] or
-    None if native lib unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    B = words.shape[0]
-    cap = 16 * max(int(tlen.max()), int(qlen.max())) + 16
-    cigars = np.zeros((B, cap), np.uint8)
-    offsets = np.zeros(B, np.int32)
-    i32 = lambda a: np.ascontiguousarray(a, np.int32)
-    tl, ql = i32(tlen), i32(qlen)
-    mx_t, mx_q = i32(ez["max_t"]), i32(ez["max_q"])
-    seg, mq_t = i32(ez["seg_length"]), i32(ez["mqe_t"])
-    words = np.ascontiguousarray(words, np.uint32)
-    lib.cigar_decode_batch(
-        B, _ptr(words), words.shape[1] * words.shape[2], words.shape[2],
-        _ptr(tl), _ptr(ql), int(strategy),
-        _ptr(mx_t), _ptr(mx_q), _ptr(seg), _ptr(mq_t),
-        _ptr(cigars), cap, _ptr(offsets),
-        n_threads or min(8, os.cpu_count() or 1),
-    )
-    out = []
-    for b in range(B):
-        row = cigars[b]
-        n = int(np.argmax(row == 0))
-        out.append((row[:n].tobytes().decode(), int(offsets[b])))
-    return out
-
-
-def cigar_decode_bulk_banded(words: np.ndarray, ez: dict, tlen: np.ndarray,
-                             qlen: np.ndarray, strategy: int,
-                             band_h: int, words_per_band: int,
-                             n_threads: int | None = None,
-                             device_layout: bool = False):
-    """Bulk decode for the banded kernel layout.
-
-    words: (B, G, band_h) per-pair contiguous, or with device_layout=True
-    the kernel output (G, band_h, B) decoded in place — no transpose copy.
-    Returns list[(cigar, offset)] or None if the native lib is unavailable.
-    """
-    lib = get_lib()
-    if lib is None:
-        return None
-    words = np.ascontiguousarray(words, np.uint32)
-    if device_layout:
-        # kernel output (G, band_h, n_lanes) decoded in place; only the
-        # first len(tlen) lanes are real pairs
-        G, BH, n_lanes = words.shape
-        B = len(tlen)
-        pair_stride = 1
-        word_row_stride = BH * n_lanes
-        sub_stride = n_lanes
-    else:
-        B = words.shape[0]
-        pair_stride = words.shape[1] * words.shape[2]
-        word_row_stride = words.shape[2]
-        sub_stride = 1
-    cap = 16 * max(int(tlen.max()), int(qlen.max())) + 16
-    cigars = np.zeros((B, cap), np.uint8)
-    offsets = np.zeros(B, np.int32)
-    i32 = lambda a: np.ascontiguousarray(a, np.int32)
-    tl, ql = i32(tlen), i32(qlen)
-    mx_t, mx_q = i32(ez["max_t"]), i32(ez["max_q"])
-    seg, mq_t = i32(ez["seg_length"]), i32(ez["mqe_t"])
-    lib.cigar_decode_batch_banded(
-        B, _ptr(words), pair_stride, word_row_stride,
-        _ptr(tl), _ptr(ql), int(strategy),
-        _ptr(mx_t), _ptr(mx_q), _ptr(seg), _ptr(mq_t),
-        _ptr(cigars), cap, _ptr(offsets),
-        n_threads or min(8, os.cpu_count() or 1),
-        int(band_h), int(words_per_band), int(sub_stride),
-    )
-    out = []
-    for b in range(B):
-        row = cigars[b]
-        n = int(np.argmax(row == 0))
-        out.append((row[:n].tobytes().decode(), int(offsets[b])))
     return out
 
 

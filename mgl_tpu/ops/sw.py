@@ -1,13 +1,13 @@
 """Batched anti-diagonal Smith-Waterman forward pass (JAX).
 
-TPU-first redesign of the reference SW kernels
-(``/root/reference/src/main/native/mgl_sw/sw.cpp`` scalar semantics;
-``sw_avx.cpp`` band-parallel layout).  Key departures from the reference:
+Batched redesign of the reference SW kernels (``mgl_sw/sw.cpp`` scalar
+semantics; ``sw_avx.cpp`` band-parallel layout).  Key departures from the
+reference:
 
 * **Inter-pair vectorization**: the reference packs 8 anti-diagonal cells of
-  ONE pair into AVX lanes; here whole *batches of pairs* ride the 8x128 VPU,
-  one DP cell per pair per step, which is the idiomatic TPU shape for
-  ~100-500 bp sequences (SURVEY.md §7.3).
+  ONE pair into AVX lanes; here whole *batches of pairs* ride the vector
+  lanes, one DP cell per pair per step, the natural shape for ~100-500 bp
+  sequences (SURVEY.md §7.3).
 * **Wavefront over anti-diagonals**: all cells of diagonal d = i+j are
   independent; state for diagonals d-1/d-2 is carried between steps.
 * **Run-length backtrack preserved**: the emitted backtrack codes are the
@@ -18,8 +18,8 @@ Exact semantics replicated (sw.cpp:60-93,100-127):
   move priority diag >= INS >= DEL; gap-open on strictly-greater only;
   last-column max via >= (largest row wins); last-row tie-closer-to-diagonal.
 
-The same step function is reused by the Pallas kernel (kernels/sw_pallas.py)
-— this module is both the CPU/XLA fallback and the semantic specification.
+This module is the plain JAX path and the semantic specification; the
+score-only GPU kernel (kernels/sw_triton.py) is checked against it.
 """
 
 from __future__ import annotations
@@ -185,6 +185,44 @@ def sw_forward(
     return SWForwardResult(btr=btr, last_col=lc, last_row=lr)
 
 
+def best_scores(target, tlen, query, qlen, params, *,
+                indel_init: bool = False, impl: str = "auto",
+                interpret: bool = False):
+    """(B,) int32 best score per pair, the ScoreMax ``max`` entry (best
+    cell of the last row and the last column), on device.
+
+    target (B, T) and query (B, Q) int32 symbol codes with their lengths;
+    ``params`` an SWParameters.  impl='pallas' runs the score-only GPU
+    kernel (kernels/sw_triton.py), 'xla' the plain forward pass; 'auto'
+    chooses by device (core/backend.resolve_impl).  Traceable inside jit.
+    """
+    from mgl_tpu.core.backend import resolve_impl
+
+    if resolve_impl(impl) == "pallas":
+        from mgl_tpu.kernels.sw_triton import sw_scores
+
+        return sw_scores(target.T, query.T, tlen, qlen,
+                         match=int(params.match),
+                         mismatch=int(params.mismatch),
+                         gap_open=int(params.gap_open),
+                         gap_ext=int(params.gap_extend),
+                         indel_init=indel_init, interpret=interpret)
+    sw = sw_forward(target, tlen, query, qlen, jnp.int32(params.match),
+                    jnp.int32(params.mismatch), jnp.int32(params.gap_open),
+                    jnp.int32(params.gap_extend), indel_init=indel_init,
+                    with_traceback=False)
+    # only diagonals [ql-1, ql+tl-1) of last_col and [tl-1, tl+ql-1) of
+    # last_row are real cells (compute_score_max's slicing); the rest
+    # hold fill values that must not win the max
+    neg = jnp.int32(DP_NEG_INF)
+    d = jnp.arange(sw.last_col.shape[0], dtype=jnp.int32)[:, None]
+    ql = qlen.astype(jnp.int32)[None, :]
+    tl = tlen.astype(jnp.int32)[None, :]
+    lc = jnp.where((d >= ql - 1) & (d < ql + tl - 1), sw.last_col, neg)
+    lr = jnp.where((d >= tl - 1) & (d < tl + ql - 1), sw.last_row, neg)
+    return jnp.maximum(jnp.max(lr, axis=0), jnp.max(lc, axis=0))
+
+
 # ---------------------------------------------------------------------------
 # Host-side ScoreMax (ez) computation — mirrors sw.cpp:100-127.
 # ---------------------------------------------------------------------------
@@ -234,11 +272,13 @@ def align_batch(
     queries: list[bytes],
     params: SWParameters,
     strategy: OverhangStrategy,
+    pad_to: tuple[int, int] | None = None,
 ) -> list[tuple[str, int]]:
     """Align a batch of pairs; returns [(cigar, offset), ...].
 
-    Pads to the batch max lengths; production callers should length-bucket
-    first (mgl_tpu.batch.bucketing).
+    Pads to ``pad_to`` (target, query) or the batch max lengths, and the
+    pair count to a power of two, so compiled shapes recur; production
+    callers length-bucket first (mgl_tpu.batch.bucketing).
     """
     from mgl_tpu.ops.cigar import decode_batch
 
@@ -247,22 +287,28 @@ def align_batch(
     tlen = np.array([len(t) for t in targets], dtype=np.int32)
     qlen = np.array([len(q) for q in queries], dtype=np.int32)
     T, Q = int(tlen.max()), int(qlen.max())
-    tbuf = np.zeros((B, T), dtype=np.int32)
-    qbuf = np.zeros((B, Q), dtype=np.int32)
+    if pad_to is not None:
+        T, Q = max(T, pad_to[0]), max(Q, pad_to[1])
+    Bp = max(8, 1 << (B - 1).bit_length())
+    tbuf = np.zeros((Bp, T), dtype=np.int32)
+    qbuf = np.zeros((Bp, Q), dtype=np.int32)
     for i, (t, q) in enumerate(zip(targets, queries)):
         tbuf[i, : len(t)] = np.frombuffer(t, dtype=np.uint8)
         qbuf[i, : len(q)] = np.frombuffer(q, dtype=np.uint8)
+    tl = np.ones(Bp, np.int32)
+    ql = np.ones(Bp, np.int32)
+    tl[:B], ql[:B] = tlen, qlen
 
     indel_init = bool(
         strategy & (OverhangStrategy.INDEL | OverhangStrategy.LEADING_INDEL)
     )
     res = sw_forward(
-        jnp.asarray(tbuf), jnp.asarray(tlen), jnp.asarray(qbuf), jnp.asarray(qlen),
+        jnp.asarray(tbuf), jnp.asarray(tl), jnp.asarray(qbuf), jnp.asarray(ql),
         jnp.int32(params.match), jnp.int32(params.mismatch),
         jnp.int32(params.gap_open), jnp.int32(params.gap_extend),
         indel_init=indel_init,
     )
-    btr = np.asarray(res.btr)
-    ez = compute_score_max(np.asarray(res.last_col), np.asarray(res.last_row),
-                           tlen, qlen)
+    btr = np.asarray(res.btr[:, :B])
+    ez = compute_score_max(np.asarray(res.last_col[:, :B]),
+                           np.asarray(res.last_row[:, :B]), tlen, qlen)
     return decode_batch(btr, ez, tlen, qlen, strategy)

@@ -16,8 +16,8 @@ Two deployment shapes:
 1. **SPMD pod mode** — every process calls :func:`init_runtime`
    (the ``jax.distributed.initialize`` hook) and enters the SAME jitted
    ``pipeline_step`` over one global mesh spanning all processes'
-   devices.  On TPU pods the collectives ride ICI/DCN; on CPU clusters
-   (tests, this host) they ride gloo over gRPC.  SPMD is gang-scheduled:
+   devices.  On GPU hosts the collectives go to NCCL; on CPU clusters
+   (tests) they ride gloo over gRPC.  SPMD is gang-scheduled:
    one process failure aborts the step, and recovery is
    restart-plus-ledger (completed chunks are skipped).  Exercised
    cross-process in tests/test_launcher.py (2 OS processes, one global
@@ -30,7 +30,14 @@ Two deployment shapes:
    with atomic renames.  Workers that die (kill -9, preemption, network
    loss) stop heartbeating; the coordinator re-dispatches their chunks;
    the final output is bit-identical to a single-process run.  This is
-   the preemptible-fleet path for hosts that don't share an ICI domain.
+   the preemptible-fleet path for hosts that share no interconnect.
+
+Both modes start one JAX process per worker.  A JAX process reserves most
+of a GPU's memory when it first uses it, so on a GPU host each worker must
+get a card of its own: whoever spawns the workers sets
+``CUDA_VISIBLE_DEVICES`` for each (or ``XLA_PYTHON_CLIENT_MEM_FRACTION``
+to share a card on purpose); otherwise every worker after the first fails
+for want of memory.
 
 Work travels as descriptors (chunk index ranges); bulk data rides the
 shared filesystem (input .npz + per-chunk output .npz), exactly the

@@ -2,9 +2,9 @@
 
 The reference is single-process (SURVEY.md §2: TBB threads only); scale-out
 here is new design surface per BASELINE.json: data-parallel reads ('dp'),
-haplotype-parallel likelihood columns ('hp'), with XLA collectives over
-ICI/DCN.  Hosts replicate the reference/index; read batches stream through
-the dp axis.
+haplotype-parallel likelihood columns ('hp'), with XLA collectives (NCCL
+on GPUs).  Hosts replicate the reference/index; read batches stream
+through the dp axis.
 """
 
 from __future__ import annotations

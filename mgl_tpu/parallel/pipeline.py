@@ -6,18 +6,17 @@ reference — SURVEY.md §2 parallelism note):
 * reads are data-parallel along 'dp' (each host/chip owns a read shard);
 * haplotypes are model-parallel along 'hp' (each chip owns a hap shard and
   computes its block-column of the likelihood matrix);
-* per-read reductions (best haplotype) ride ICI via lax.pmax over 'hp';
+* per-read reductions (best haplotype) ride a lax.pmax over 'hp';
 * globally ordered output comes from the bitonic shard merge
   (parallel/sort.py) over 'dp'.
 
-The per-device compute inside `shard_map` is the *production* banded
-Pallas kernels (kernels/pairhmm_pallas.py, kernels/sw_pallas.py) — on
-CPU meshes (tests, multi-chip dry-runs) they run under the Mosaic TPU
-interpreter (MGL_TPU_PALLAS_INTERPRET=1); `impl="xla"` selects the
-lax.scan reference path for comparison.
+The per-device compute inside `shard_map` is the same as on one device:
+the GPU kernels (kernels/pairhmm_triton.py, kernels/sw_triton.py) where
+core/backend.resolve_impl picks them, the lax.scan specifications
+otherwise; tests run the kernels on CPU meshes with ``interpret=True``.
 
-`pipeline_step` is the jit/compile target for multi-chip dry-runs and the
-building block for pod-slice deployment: one call = likelihoods for a
+`pipeline_step` is the jit/compile target for multi-device dry-runs and
+the building block of multi-card deployment: one call = likelihoods for a
 (reads x haps) tile + SW scores vs a reference window + globally sorted
 coordinate keys.
 """
@@ -30,104 +29,29 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from mgl_tpu.core.params import DP_NEG_INF
 from mgl_tpu.ops.pairhmm import pairhmm_forward_f32
-from mgl_tpu.ops.sw import sw_forward
+from mgl_tpu.ops.sw import best_scores
 from mgl_tpu.parallel.sort import distributed_sort
 
-_BAND = 32
 
-
-def _resolve_impl(impl: str) -> bool:
-    """True = banded Pallas kernels (hardware or interpreter)."""
-    from mgl_tpu.kernels.pairhmm_pallas import env_interpret
-
-    if impl == "pallas":
-        return True
-    if impl == "xla":
-        return False
-    return jax.default_backend() == "tpu" or env_interpret()
-
-
-def _rup(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _pairhmm_block_pallas(rchar, rslen, trans, y_hap, hap, haplen,
+def _pairhmm_block_kernel(rchar, rslen, trans, y_hap, hap, haplen,
                           interpret: bool):
-    """Local (r_l x h_l) likelihood block via the banded Pallas kernel.
+    """Local (r_l x h_l) likelihood block via the GPU kernel, with the
+    product expanded on device (lane b = read b // h_l, hap b % h_l).
+    Transition rows beyond each read's length must be zero, as
+    make_example_inputs / read_transition_rows produce."""
+    from mgl_tpu.kernels.pairhmm_triton import BASE_ENC, pairhmm_scores
 
-    Device-side product expansion: per-read transition planes and per-hap
-    char planes are gathered along lanes.  Transition rows beyond each
-    read's length must be zero (pad invariance), as make_example_inputs /
-    read_transition_rows produce.
-    """
-    from mgl_tpu.kernels.pairhmm_pallas import (BASE_ENC, LANES,
-                                                pairhmm_pallas_banded)
-
-    r_l, rows = rchar.shape
-    h_l, L = hap.shape
-    B = r_l * h_l
-    Bp = _rup(B, LANES)
-    Rb = _rup(rows - 1, _BAND)
-    HR = L + _BAND
+    r_l = rchar.shape[0]
+    h_l = hap.shape[0]
+    lane = jnp.arange(r_l * h_l, dtype=jnp.int32)
+    ridx, hidx = lane // h_l, lane % h_l
     enc = jnp.asarray(BASE_ENC)
-
-    lane = jnp.arange(Bp, dtype=jnp.int32)
-    ridx = (lane // h_l) % r_l          # pad lanes wrap around (ignored)
-    hidx = lane % h_l
-
-    rc_rows = enc[rchar][:, 1:]                       # (r_l, rows-1)
-    rc = jnp.zeros((Rb, Bp), jnp.int32).at[: rows - 1].set(
-        rc_rows.T[:, ridx])
-
-    def dev(k, drop):
-        src = trans[:, k, drop:]                      # (r_l, rows-drop)
-        return jnp.zeros((Rb, Bp), jnp.float32).at[: rows - drop].set(
-            src.T[:, ridx])
-
-    pmm_u, pgapm_u = dev(0, 2), dev(1, 2)
-    pmx_u, pzz_u = dev(2, 2), dev(4, 2)
-    p_my, p_zz = dev(3, 1), dev(4, 1)
-    dm, dmm = dev(5, 1), dev(6, 1)
-
-    hp_rows = enc[hap]                                # (h_l, L)
-    hpp = jnp.zeros((HR, Bp), jnp.int32).at[:L].set(hp_rows.T[:, hidx])
-    rl = rslen.astype(jnp.int32)[ridx][None, :]
-    hl = jnp.maximum(haplen.astype(jnp.int32)[hidx], 1)[None, :]
-    u0 = (y_hap[hidx] * trans[:, 1, 1][ridx]).astype(jnp.float32)[None, :]
-
-    score = pairhmm_pallas_banded(
-        hpp, rc, rl, hl, pmm_u, pgapm_u, pmx_u, pzz_u, p_my, p_zz,
-        dm, dmm, u0, band=_BAND, interpret=interpret)
-    return score[0, :B].reshape(r_l, h_l)
-
-
-def _sw_block_pallas(target, tlen, query, qlen, params, interpret: bool):
-    """Best SW score of each read vs the replicated reference window via
-    the banded Pallas kernel (score-only)."""
-    from mgl_tpu.kernels.sw_pallas import LANES, sw_pallas_banded
-
-    r_l, Q = query.shape
-    T = target.shape[1]
-    Bp = _rup(r_l, LANES)
-    Rb = _rup(T, _BAND)
-    QR = _rup(Q + _BAND, 8)
-
-    tchar = jnp.zeros((Rb, Bp), jnp.int32).at[:T].set(
-        jnp.broadcast_to(target.reshape(T, 1), (T, Bp)))
-    qpad = jnp.zeros((QR, Bp), jnp.int32).at[:Q, :r_l].set(
-        query.T.astype(jnp.int32))
-    tl = jnp.zeros((1, Bp), jnp.int32).at[:, :r_l].set(
-        jnp.broadcast_to(tlen.reshape(1, 1), (1, r_l)))
-    ql = jnp.ones((1, Bp), jnp.int32).at[:, :r_l].set(
-        qlen.astype(jnp.int32)[None, :])
-    ez, _ = sw_pallas_banded(
-        tchar, qpad, tl, ql,
-        params.match, params.mismatch, params.gap_open, params.gap_extend,
-        indel_init=False, with_traceback=False, band=_BAND,
+    score = pairhmm_scores(
+        enc[rchar].T[:, ridx], trans.transpose(1, 2, 0)[:, :, ridx],
+        enc[hap].T[:, hidx], rslen[ridx], haplen[hidx], y_hap[hidx],
         interpret=interpret)
-    return ez[2, :r_l].astype(jnp.int32)              # overall best score
+    return score.reshape(r_l, h_l)
 
 
 def _pairhmm_block_xla(rchar, rslen, trans, y_hap, hap, haplen):
@@ -147,34 +71,23 @@ def _pairhmm_block_xla(rchar, rslen, trans, y_hap, hap, haplen):
     return scores.reshape(r_l, h_l)
 
 
-def _sw_block_xla(target, tlen, query, qlen, params):
-    r_l, Q = query.shape
+def _sw_block(target, tlen, query, qlen, params, impl: str,
+              interpret: bool):
+    """Best SW score of each read vs the replicated reference window."""
+    r_l = query.shape[0]
     T = target.shape[1]
-    tgt = jnp.broadcast_to(target, (r_l, T))
-    tl = jnp.broadcast_to(tlen, (r_l,))
-    sw = sw_forward(tgt, tl, query, qlen,
-                    jnp.int32(params.match), jnp.int32(params.mismatch),
-                    jnp.int32(params.gap_open), jnp.int32(params.gap_extend),
-                    indel_init=False, with_traceback=False)
-    # Only diagonals [ql-1, ql+tl-1) of last_col / [tl-1, tl+ql-1) of
-    # last_row are real cells (ops/sw.compute_score_max slicing); the
-    # rest hold fill values that must not win the max (a 0 there floors
-    # negative best scores, diverging from the kernels' ScoreMax).
-    neg = jnp.int32(DP_NEG_INF)
-    d = jnp.arange(sw.last_col.shape[0], dtype=jnp.int32)[:, None]
-    ql = qlen.astype(jnp.int32)[None, :]
-    tln = tl.astype(jnp.int32)[None, :]
-    lc = jnp.where((d >= ql - 1) & (d < ql + tln - 1), sw.last_col, neg)
-    lr = jnp.where((d >= tln - 1) & (d < tln + ql - 1), sw.last_row, neg)
-    return jnp.maximum(jnp.max(lr, axis=0),
-                       jnp.max(lc, axis=0)).astype(jnp.int32)
+    return best_scores(jnp.broadcast_to(target, (r_l, T)),
+                       jnp.broadcast_to(tlen, (r_l,)), query, qlen, params,
+                       impl=impl, interpret=interpret).astype(jnp.int32)
 
 
-def pipeline_step(mesh: Mesh, impl: str = "auto", sw_params=None):
+def pipeline_step(mesh: Mesh, impl: str = "auto", sw_params=None,
+                  interpret: bool = False):
     """Build the jitted sharded step for ``mesh``.
 
-    ``impl``: 'pallas' (banded production kernels), 'xla' (lax.scan
-    reference path), or 'auto' (pallas on TPU or under the interpreter).
+    ``impl``: 'pallas' (GPU kernels), 'xla' (lax.scan specifications), or
+    'auto' (core/backend.resolve_impl).  ``interpret`` runs the kernels
+    in Pallas interpret mode (CPU tests).
     ``sw_params``: SWParameters for the verify stage (kernel sign
     convention, as in pipelines/mapper.py); defaults to the GATK NGS set.
 
@@ -186,33 +99,29 @@ def pipeline_step(mesh: Mesh, impl: str = "auto", sw_params=None):
         hap (H, L) i32, haplen (H,) i32, y_init (H,) f32
       ref_window: dict (replicated): target (1, T) i32, tlen (1,) i32
     """
+    from mgl_tpu.core.backend import resolve_impl
     from mgl_tpu.core.params import SWParameters
-    from mgl_tpu.kernels.pairhmm_pallas import env_interpret
 
     params = sw_params or SWParameters(25, -50, 110, 6)
-    use_pallas = _resolve_impl(impl)
-    interp = env_interpret()
+    impl = resolve_impl(impl)
 
     def step(rchar, rslen, trans, query, qlen, key_hi, key_lo,
              hap, haplen, y_init, target, tlen):
         # 1. likelihood block (dp x hp block of the R x H matrix)
-        if use_pallas:
-            lik = _pairhmm_block_pallas(rchar, rslen, trans, y_init,
-                                        hap, haplen, interp)
+        if impl == "pallas":
+            lik = _pairhmm_block_kernel(rchar, rslen, trans, y_init,
+                                        hap, haplen, interpret)
         else:
             lik = _pairhmm_block_xla(rchar, rslen, trans, y_init,
                                      hap, haplen)
 
-        # 2. best-hap reduction across the hp axis (ICI collective)
+        # 2. best-hap reduction across the hp axis (collective)
         local_best = jnp.max(lik, axis=1)
         best = jax.lax.pmax(local_best, "hp")
 
         # 3. SW score of each read against the reference window (dp-local)
-        if use_pallas:
-            sw_best = _sw_block_pallas(target, tlen, query, qlen,
-                                       params, interp)
-        else:
-            sw_best = _sw_block_xla(target, tlen, query, qlen, params)
+        sw_best = _sw_block(target, tlen, query, qlen, params, impl,
+                            interpret)
 
         # 4. global coordinate sort of read keys over dp (bitonic shard merge)
         r_l = query.shape[0]
@@ -255,7 +164,19 @@ def make_example_inputs(mesh: Mesh, r_per_dev=8, h_per_dev=4,
     H = h_per_dev * hp
     rows = read_len + 1
     rng = np.random.default_rng(seed)
-    bases = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(R, read_len))
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    # an assembly region's haplotypes: one base sequence with 2
+    # substitutions each; reads are windows of the base with 3%
+    # substitutions, so every pair's f32 likelihood stays in range
+    base = rng.choice(acgt, size=max(hap_len, read_len))
+    haps = np.tile(base[:hap_len], (H, 1))
+    for h in range(H):
+        haps[h, rng.integers(0, hap_len, 2)] = rng.choice(acgt, 2)
+    haps = haps.astype(np.int32)
+    src = rng.integers(0, len(base) - read_len + 1, R)
+    bases = base[src[:, None] + np.arange(read_len)[None, :]]
+    mut = rng.random((R, read_len)) < 0.03
+    bases[mut] = rng.choice(acgt, int(mut.sum()))
     quals = rng.integers(20, 50, size=(R, read_len)).astype(np.uint8)
     gcp = np.full((R, read_len), 10, np.uint8)
 
@@ -272,7 +193,6 @@ def make_example_inputs(mesh: Mesh, r_per_dev=8, h_per_dev=4,
 
     rchar = np.zeros((R, rows), np.int32)
     rchar[:, 1:] = bases
-    haps = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(H, hap_len)).astype(np.int32)
 
     keys = rng.integers(0, 2**62, size=R).astype(np.uint64)
     from mgl_tpu.parallel.sort import split_u64
@@ -294,8 +214,7 @@ def make_example_inputs(mesh: Mesh, r_per_dev=8, h_per_dev=4,
                    ) * np.ones(H, np.float32),
     }
     ref_window = {
-        "target": rng.choice(np.frombuffer(b"ACGT", np.uint8),
-                             size=(1, 64)).astype(np.int32),
+        "target": rng.choice(acgt, size=(1, 64)).astype(np.int32),
         "tlen": np.full(1, 64, np.int32),
     }
 

@@ -14,7 +14,8 @@ network over the mesh axis exchanges whole shards with partners via
 ppermute and keeps the lower/upper half of each merged pair (merge-split
 comparators preserve sorting networks, so the block version sorts).
 log2(P)*(log2(P)+1)/2 exchange stages; every stage moves one shard per
-device over ICI.  Deterministic, fixed shapes, no host round-trips.
+device over the interconnect.  Deterministic, fixed shapes, no host
+round-trips.
 """
 
 from __future__ import annotations

@@ -280,7 +280,6 @@ def test_mapper_cigar_fuzz_vs_reference(monkeypatch):
     emits alignments whose score equals the reference scalar kernel's
     optimum on the same (window, read) pair — fresh random reads with
     SNPs and indels every run."""
-    monkeypatch.setenv("MGL_TPU_PALLAS_INTERPRET", "1")
     from mgl_tpu.pipelines.mapper import ReferenceIndex, map_reads_stream
 
     rng = np.random.default_rng()

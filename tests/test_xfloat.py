@@ -81,70 +81,6 @@ def test_xf_rescue_matches_reference_double_kernels(pairhmm_golden):
         assert dl < 1e-5 and da < 1e-5, (k, got[k], want_s, want_a)
 
 
-def test_xf_banded_kernel_matches_scan_spec(monkeypatch, pairhmm_golden):
-    """The banded Pallas xfloat kernel (kernels/pairhmm_xf_pallas.py) on a
-    golden rescue slice: same underflow set as the XLA scan spec and
-    log10 within 1e-9 (the U/W pre-multiplication only reorders
-    rounding), and within the 1e-5 contract of the reference's f64
-    kernels."""
-    from mgl_tpu.kernels.pairhmm_xf_pallas import rescue_scores_xf_banded
-    from mgl_tpu.ops.xfloat import rescue_scores_xf
-
-    monkeypatch.setenv("MGL_TPU_PALLAS_INTERPRET", "1")
-    rows = pairhmm_golden[:48]
-    reads, haps = _golden_reads_haps(rows)
-    pairs = [(k, k) for k in range(len(rows))]
-    got = rescue_scores_xf_banded(reads, haps, pairs)
-    want = rescue_scores_xf(reads, haps, pairs)
-    assert np.array_equal(got == 0, want == 0)
-    nz = want != 0
-    assert np.all(np.abs(np.log10(got[nz]) - np.log10(want[nz])) < 1e-9)
-    for k, r in enumerate(rows):
-        want_d = float.fromhex(r["scalard"])
-        if want_d == 0.0 or got[k] == 0.0:
-            continue
-        assert abs(math.log10(got[k]) - math.log10(want_d)) < 1e-5, k
-
-
-def test_xf_banded_streaming_tiers_bitexact(monkeypatch):
-    """stream (HBM plane DMA) and stream+stream_carry (HBM carry windows)
-    produce BIT-identical score triples to the all-VMEM xf kernel — the
-    rescue tier has no VMEM cliff (VERDICT r2 item 7).  Long synthetic
-    pairs force multiple carry windows (CW=256 < haplen)."""
-    from mgl_tpu.kernels.pairhmm_xf_pallas import rescue_scores_xf_banded
-    from mgl_tpu.ops.xfloat import rescue_scores_xf
-
-    monkeypatch.setenv("MGL_TPU_PALLAS_INTERPRET", "1")
-    # small synthetic pairs with one hap past CW=256 so stream_carry
-    # crosses a window boundary; kept tiny — interpret pays per DP step,
-    # and the golden-corpus coverage of the base kernel lives in
-    # test_xf_banded_kernel_matches_scan_spec
-    rng = np.random.default_rng(5)
-    reads, haps = [], []
-    for n, hlen in ((32, 288), (24, 80), (32, 120)):
-        bases = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n)
-        reads.append(dict(bases=bases,
-                          q=rng.integers(10, 50, n).astype(np.uint8),
-                          i=np.full(n, 45, np.uint8),
-                          d=np.full(n, 45, np.uint8),
-                          c=np.full(n, 10, np.uint8)))
-        hp = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=hlen)
-        hp[40: 40 + n] = bases
-        haps.append(hp)
-    pairs = [(i, j) for i in range(3) for j in range(3)]
-
-    base = rescue_scores_xf_banded(reads, haps, pairs)
-    strm = rescue_scores_xf_banded(reads, haps, pairs, stream=True)
-    both = rescue_scores_xf_banded(reads, haps, pairs, stream=True,
-                                   stream_carry=True)
-    np.testing.assert_array_equal(base, strm)
-    np.testing.assert_array_equal(base, both)
-    # and the tiers stay inside the scan-spec contract
-    want = rescue_scores_xf(reads, haps, pairs)
-    nz = want != 0
-    assert np.all(np.abs(np.log10(both[nz]) - np.log10(want[nz])) < 1e-9)
-
-
 def test_rescue_decisions_and_tier_equivalence(pairhmm_golden):
     """Cascade with the device tier: rescue *decisions* come from the f32
     pass (unchanged); rescued scores agree with the scalar-f64 oracle tier

@@ -2,7 +2,7 @@
 //
 // Compiles the *reference* kernels (from /root/reference, via include path —
 // no sources are copied into this repo) and drives them over test vectors so
-// the TPU rebuild can assert parity.  Modes:
+// the rebuild can assert parity.  Modes:
 //
 //   tables  <out_dir>    — dump Context<float>/<double> tables as raw binary
 //   sw                   — stdin lines: "target query match mismatch open ext strategy"

@@ -1,16 +1,13 @@
 """Microbenchmark: the mapper's device window gather vs reference size.
 
-The 512 Mbp scale run showed map.dispatch blowing up 4x vs 64 Mbp
-(scale_report.json stage_s) with the SAME read count.  This tool holds
-the evidence for the round-5 fix (DESIGN.md §10a): it times
-  (a) the OLD flat byte gather (one ref byte per window column — what
-      rounds 1-4 shipped; built locally here since production no longer
-      stores bytes on device),
-  (b) the old blocked (row, offset) byte gather,
+Times, on whatever device JAX uses:
+  (a) a flat byte gather (one ref byte per window column; built locally
+      here since production no longer stores bytes on device),
+  (b) the blocked (row, offset) byte gather,
   (c) the sorted-starts variant of (a) (locality probe),
   (d) the word-packed gather (8 bp per uint32, ~26 aligned words per
       window, device unpack + 8-way nibble-shift select — production),
-  (e) the full production dispatch+SW path (_windowed_scores_fn).
+  (e) the full production gather + SW verify (_windowed_scores_fn).
 
 Usage: python tools/profile_gather.py [--mbp 64 512] [--lanes 131072]
 """
@@ -116,16 +113,18 @@ def run(ref_mbp: float, lanes: int, wlen: int = 198, qlen: int = 150,
                                     jnp.asarray(w0), jnp.asarray(s_nib))
 
     # (e) full production dispatch + SW (what map.dispatch measures)
+    from mgl_tpu.core.params import SWParameters
+
     packed = M._pack_codes(reads)
-    fn = M._windowed_scores_fn(wlen, qlen, blocked=False)
+    fn = M._windowed_scores_fn(wlen, qlen, SWParameters(25, -50, 110, 6),
+                               blocked=False)
     args = (words_dev, (jnp.asarray(w0), jnp.asarray(s_nib)),
-            jnp.asarray(packed), 25, -50, 110, 6)
-    sc, _ = fn(*args)
-    np.asarray(sc[:8])
+            jnp.asarray(packed))
+    np.asarray(fn(*args)[:8])
     best = float("inf")
     for _ in range(3):
         t0 = time.time()
-        rs = [fn(*args)[0] for _ in range(iters)]
+        rs = [fn(*args) for _ in range(iters)]
         np.asarray(rs[-1][:8])
         best = min(best, (time.time() - t0) / iters)
     out["gather_plus_sw_ms"] = best * 1e3

@@ -1,8 +1,7 @@
 """Profile the mapper's HOST stages (seed + host_tier) without a device.
 
 The device verify is stubbed out so this isolates the host-side work
-that tools/run_scale_configs.py's stage_s records — the bottleneck the
-round-3 advisor flagged.  Run on any host:
+that tools/run_scale_configs.py's stage_s records.  Run on any host:
 
     JAX_PLATFORMS=cpu python tools/profile_mapper_host.py [--reads N]
 """
@@ -39,10 +38,10 @@ def main():
     print(f"index build: {time.time()-t0:.2f}s", flush=True)
 
     # stub the device verify: host stages run exactly as in production,
-    # the chip part returns instantly
-    def fake_async(index, starts, reads, wlen, params):
+    # the device part returns instantly
+    def fake_async(index, starts, reads, wlen, params, impl="auto"):
         B = len(starts)
-        return np.zeros((3, B), np.int32), B
+        return np.zeros(B, np.int32), B
 
     mapper._sw_score_windows_async = fake_async
 
